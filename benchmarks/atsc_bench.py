@@ -16,13 +16,12 @@ composed into the end-to-end symbol rate:
   * trellis: 12-phase vmapped Viterbi (one call, models/atsc.py)
   * transport: host-side deinterleave + RS(207,187) + derandomize
 
-Timing: in-jit fori_loop carry-fed slope, median over rounds (bench.py /
-CLAUDE.md discipline); host stage by wall clock (it is host numpy).
+Timing: in-jit fori_loop carry-fed slope, median over rounds
+(benchmarks/common.py); host stage by wall clock (it is host numpy).
 
-Run from the repo root on the TPU: python benchmarks/atsc_bench.py
+Run from the repo root on the GPU: python benchmarks/atsc_bench.py
 """
 
-import json
 import os
 import sys
 import time
@@ -31,18 +30,16 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from benchmarks.common import emit, setup, slope_seconds  # noqa: E402
+
 RATIO = 2.5
 FS = 10.762238e6 * RATIO
 IF_NORM = 0.26
 
 
 def main():
+    setup()
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
 
     from grtpu.models import atsc_rf as rf
@@ -95,20 +92,8 @@ def main():
 
     # ---- shared slope timer --------------------------------------------
     def slope(g, args, mbig):
-        float(np.asarray(g(*args, jnp.int32(1))))
-        float(np.asarray(g(*args, jnp.int32(mbig))))
-        vals = []
-        for _ in range(4):
-            t0 = time.perf_counter()
-            float(np.asarray(g(*args, jnp.int32(1))))
-            t1 = time.perf_counter()
-            float(np.asarray(g(*args, jnp.int32(mbig))))
-            t2 = time.perf_counter()
-            s = ((t2 - t1) - (t1 - t0)) / (mbig - 1)
-            if s > 0:
-                vals.append(s)
-            fallback = (t2 - t1) / (mbig - 1)
-        return float(np.median(vals)) if vals else fallback
+        return slope_seconds(
+            lambda m: float(np.asarray(g(*args, jnp.int32(m)))), mbig)
 
     # ---- stage 1: front end (FIR -> FPLL -> LPF -> DC -> BTL -> FS) ----
     # timed as four separately-jitted loops (one fully-fused program
@@ -201,7 +186,7 @@ def main():
     eq_msym = FL / per_eq / 1e6
 
     # linear NLMS alternative (no decision feedback -> the field filter
-    # is ONE dense MXU FIR; the DFE's feedback dot is inherently
+    # is ONE dense matmul FIR; the DFE's feedback dot is inherently
     # per-symbol sequential)
     xt_l = jnp.asarray(x_field[: rf.FS_TRAIN_LEN + rf.EQ_NTAPS - 1])
     xf_l = jnp.asarray(x_field)
@@ -257,12 +242,12 @@ def main():
               "viterbi12": round(tr_msym, 2),
               "transport_host": round(host_msym, 2)}
     bottleneck = min(stages, key=stages.get)
-    # alternative chain with the linear NLMS equalizer (one MXU FIR)
+    # alternative chain with the linear NLMS equalizer (one matmul FIR)
     ps_nlms = (1.0 / (fe_msym * 1e6) + 1.0 / (nlms_msym * 1e6)
                + 1.0 / (tr_msym * 1e6) + 1.0 / (host_msym * 1e6))
     chain_nlms = 1.0 / ps_nlms / 1e6
 
-    print(json.dumps({
+    emit({
         "metric": "atsc_8vsb_rx_full_chain",
         "value": round(chain_msym, 2),
         "unit": "Msym/s",
@@ -275,13 +260,13 @@ def main():
                   " feedback is inherently sequential"
                   % (fe_msym, fe_msps, eq_msym, nlms_msym, chain_nlms,
                      tr_msym, host_msym, bottleneck)),
-    }))
-    print(json.dumps({
+    })
+    emit({
         "metric": "atsc_rx_front_end",
         "value": round(fe_msps, 1),
         "unit": "Msamples/s",
         "vs_baseline": round(fe_msym / 10.762238, 3),
-    }))
+    })
 
 
 if __name__ == "__main__":

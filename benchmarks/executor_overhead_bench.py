@@ -1,8 +1,7 @@
 """StreamExecutor host control-plane overhead per step.
 
-VERDICT round-1 weak item #4: the python dispatch around the jitted step
-(tag advance, bookkeeping) is the host-side control plane for a >1 Gsps
-data plane — measure it, don't guess.  This times the HOST work alone by
+The python dispatch around the jitted step (tag advance, bookkeeping) is
+the host-side control plane for a >1 Gsps data plane.  This times the HOST work alone by
 calling the executor's dispatch machinery with the jitted step replaced by
 an identity (so device time and transfer time are excluded), for a
 20-block chain at chunk 4096, with and without tags in flight.
@@ -10,10 +9,9 @@ an identity (so device time and transfer time are excluded), for a
 Prints JSON lines: host overhead per step, and the implied ceiling in
 Msamples/s at chunk 4096 (ceiling = chunk / overhead).
 
-Run from the repo root: python benchmarks/executor_overhead_bench.py
+Run from the repo root on the GPU: python benchmarks/executor_overhead_bench.py
 """
 
-import json
 import os
 import sys
 import time
@@ -22,9 +20,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from benchmarks.common import emit, setup  # noqa: E402
+
 
 def main():
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    setup()
     import jax.numpy as jnp
 
     from grtpu.runtime.block import Port
@@ -54,13 +54,13 @@ def main():
         for _ in range(n):
             ex.step(x)
         dt = (time.perf_counter() - t0) / n
-        print(json.dumps({
+        emit({
             "metric": f"executor_host_overhead_{label}",
             "value": round(dt * 1e6, 1),
             "unit": "us/step",
             "ceiling_msps_at_4096": round(chunk / dt / 1e6, 1),
             "nblocks": nblocks,
-        }))
+        })
     ex._jit_step = real
 
     # device-side multi-step loop: ALL chunks in one lax.scan dispatch —
@@ -81,14 +81,14 @@ def main():
     for _ in range(n):
         ex2.run(big, device_loop=True)
     dt = (time.perf_counter() - t0) / n / nchunks
-    print(json.dumps({
+    emit({
         "metric": "executor_host_overhead_device_loop",
         "value": round(dt * 1e6, 2),
         "unit": "us/chunk",
         "ceiling_msps_at_4096": round(chunk / dt / 1e6, 1),
         "nblocks": nblocks,
         "nchunks": nchunks,
-    }))
+    })
 
 
 if __name__ == "__main__":

@@ -10,36 +10,32 @@ bottleneck.  BER at the bench SNR is verified once on real modulated
 waveforms before timing, so the recorded rate is for a LOCKING receiver,
 not noise-shoveling.
 
-Timing: in-jit fori_loop with carry-fed inputs + scalar readback slope,
-median over rounds (see bench.py / CLAUDE.md timing discipline).
+Timing: m iterations chained in one jitted fori_loop with carry-fed
+inputs; the per-iteration time is the slope between two loop lengths,
+median over rounds (benchmarks/common.py).
 
-Run from the repo root on the TPU: python benchmarks/psk_bench.py
+Run from the repo root on the GPU: python benchmarks/psk_bench.py
 """
 
-import json
 import os
 import sys
-import time
 from functools import partial
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from benchmarks.common import emit, setup, slope_seconds  # noqa: E402
+
 SNR_DB = 20.0
 
 
 def main():
+    setup()
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
 
     from grtpu.digital.generic_mod_demod import GenericModem
-    from grtpu.utils import xfer
 
     sps = 2
     C, N = 256, 1 << 15                    # 256 channels x 32k samples/step
@@ -49,7 +45,7 @@ def main():
     r = np.random.RandomState(0)
     nbits = (N // sps) * 2 + 64
     bits0 = r.randint(0, 2, nbits).astype(np.uint8)
-    tx0 = xfer.to_numpy(modem.modulate(bits0))   # complex-safe D2H
+    tx0 = np.asarray(modem.modulate(bits0))
     sig_pow = (np.abs(tx0) ** 2).mean()
     namp = np.sqrt(sig_pow / (2 * 10 ** (SNR_DB / 10)))
     chans = np.zeros((C, N), np.complex64)
@@ -89,20 +85,8 @@ def main():
         return g
 
     def slope(g, mbig):
-        float(np.asarray(g(re, im, jnp.int32(1))))
-        float(np.asarray(g(re, im, jnp.int32(mbig))))
-        vals = []
-        for _ in range(4):
-            t0 = time.perf_counter()
-            float(np.asarray(g(re, im, jnp.int32(1))))
-            t1 = time.perf_counter()
-            float(np.asarray(g(re, im, jnp.int32(mbig))))
-            t2 = time.perf_counter()
-            s = ((t2 - t1) - (t1 - t0)) / (mbig - 1)
-            if s > 0:
-                vals.append(s)
-            fallback = (t2 - t1) / (mbig - 1)
-        return float(np.median(vals)) if vals else fallback
+        return slope_seconds(
+            lambda m: float(np.asarray(g(re, im, jnp.int32(m)))), mbig)
 
     stages = {}
     for upto, mbig in (("agc", 9), ("fll", 5), ("clock", 5), ("all", 5)):
@@ -110,7 +94,7 @@ def main():
         stages[upto] = round(C * N / per / 1e6, 1)
 
     msps = stages["all"]
-    print(json.dumps({
+    emit({
         "metric": "psk_generic_demod_bank_256ch_aggregate",
         "value": msps,
         "unit": "Msamples/s",
@@ -123,7 +107,7 @@ def main():
                   " chunked formulation attacks" %
                   (stages["agc"], stages["fll"], stages["clock"],
                    stages["all"])),
-    }))
+    })
 
     # --- chunked formulation: same loops recovered in closed form per
     # chunk (loops.agc2_chunked / fll_band_edge_chunked /
@@ -161,7 +145,7 @@ def main():
     gck = make_ck(1024, 1 << 14)
     per_ck = slope(lambda *a: gck(a[-1]), 5)
     msps_ck = round(gck.work / per_ck / 1e6, 1)
-    print(json.dumps({
+    emit({
         "metric": "psk_generic_demod_bank_chunked_1024ch_aggregate",
         "value": msps_ck,
         "unit": "Msamples/s",
@@ -175,13 +159,13 @@ def main():
                   " (rate-prediction drift ~beta*Lc^2/2 bank steps must"
                   " stay under a symbol position)" %
                   max(msps_ck / max(msps, 1e-9), 1.0)),
-    }))
-    print(json.dumps({
+    })
+    emit({
         "metric": "psk_generic_demod_symbol_rate_chunked",
         "value": round(msps_ck / sps, 1),
         "unit": "Msym/s",
         "vs_baseline": round(msps_ck / 1000.0, 3),
-    }))
+    })
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
-"""Vocoder throughput — gr-vocoder parity evidence (VERDICT r4 #8).
+"""Vocoder throughput — gr-vocoder parity evidence.
 
 Measures, on real hardware:
-  * GSM 06.10 full-rate: vmapped C-channel encode+decode bank on the TPU
+  * GSM 06.10 full-rate: vmapped C-channel encode+decode bank on the GPU
     (the codec is a per-frame lax.scan; batch throughput rides vmap);
   * CVSD encode bank (per-sample scan, vmapped);
   * G.721 ADPCM encode bank (per-sample scan, vmapped);
@@ -13,13 +13,12 @@ Measures, on real hardware:
 Rates are reported as audio Msamples/s and as x-realtime channel counts
 (8 kS/s per voice channel).
 
-Timing: device paths use the in-jit fori_loop carry-fed slope (bench.py
-discipline); host paths use wall clock (they are host numpy).
+Timing: device paths use the in-jit fori_loop carry-fed slope
+(benchmarks/common.py); host paths use wall clock (they are host numpy).
 
-Run from the repo root on the TPU: python benchmarks/vocoder_bench.py
+Run from the repo root on the GPU: python benchmarks/vocoder_bench.py
 """
 
-import json
 import os
 import sys
 import time
@@ -28,14 +27,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from benchmarks.common import emit, setup, slope_seconds  # noqa: E402
+
 
 def main():
+    setup()
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
 
     from grtpu.vocoder import cvsd, g72x, gsm
@@ -43,20 +40,9 @@ def main():
     r = np.random.RandomState(0)
 
     def slope(g, args, mbig, rounds=3):
-        float(np.asarray(g(*args, jnp.int32(1))))
-        float(np.asarray(g(*args, jnp.int32(mbig))))
-        vals = []
-        for _ in range(rounds):
-            t0 = time.perf_counter()
-            float(np.asarray(g(*args, jnp.int32(1))))
-            t1 = time.perf_counter()
-            float(np.asarray(g(*args, jnp.int32(mbig))))
-            t2 = time.perf_counter()
-            s = ((t2 - t1) - (t1 - t0)) / (mbig - 1)
-            if s > 0:
-                vals.append(s)
-            fallback = (t2 - t1) / (mbig - 1)
-        return float(np.median(vals)) if vals else fallback
+        return slope_seconds(
+            lambda m: float(np.asarray(g(*args, jnp.int32(m)))), mbig,
+            rounds=rounds)
 
     # ---- GSM 06.10 vmapped bank (encode + decode round trip) -----------
     C, NFRAMES = 64, 50                       # 64 ch x 1 s of audio each
@@ -82,14 +68,14 @@ def main():
     gsm_msps = C * n / per / 1e6
     gsm_rt = gsm_msps * 1e6 / 8000.0
 
-    print(json.dumps({
+    emit({
         "metric": "gsm0610_bank_64ch_encdec",
         "value": round(gsm_msps, 2),
         "unit": "Msamples/s",
         "vs_baseline": round(gsm_rt / 64.0, 1),
         "realtime_channels": int(gsm_rt),
         "notes": "vmapped per-frame scan bank, full encode+decode",
-    }))
+    })
 
     # ---- CVSD encode bank ----------------------------------------------
     p = cvsd._CvsdParams()
@@ -110,13 +96,13 @@ def main():
 
     per = slope(g_cvsd, (jnp.asarray(pcm_cv),), 5)
     cvsd_msps = C * ncv / per / 1e6
-    print(json.dumps({
+    emit({
         "metric": "cvsd_encode_bank_64ch",
         "value": round(cvsd_msps, 2),
         "unit": "Msamples/s",
         "vs_baseline": round(cvsd_msps * 1e6 / 64000.0 / 64.0, 1),
         "realtime_channels": int(cvsd_msps * 1e6 / 64000.0),  # 64 kS/s CVSD
-    }))
+    })
 
     # ---- G.721 encode bank ---------------------------------------------
     gs0 = g72x.g72x_init_state()
@@ -136,13 +122,13 @@ def main():
     pcm_g = (r.randn(C, ng) * 8000).astype(np.float32)
     per = slope(g_g721, (jnp.asarray(pcm_g),), 5)
     g721_msps = C * ng / per / 1e6
-    print(json.dumps({
+    emit({
         "metric": "g721_encode_bank_64ch",
         "value": round(g721_msps, 2),
         "unit": "Msamples/s",
         "vs_baseline": round(g721_msps * 1e6 / 8000.0 / 64.0, 1),
         "realtime_channels": int(g721_msps * 1e6 / 8000.0),
-    }))
+    })
 
     # ---- codec2 (host) --------------------------------------------------
     from grtpu.vocoder.codec2 import Codec2
@@ -156,14 +142,14 @@ def main():
     _ = c2d.decode(data)
     host_s = time.perf_counter() - t0
     c2_x = nsec / host_s
-    print(json.dumps({
+    emit({
         "metric": "codec2_host_encdec",
         "value": round(c2_x, 2),
         "unit": "x_realtime",
         "vs_baseline": round(c2_x, 2),
         "notes": ("frame-level HOST numpy codec (bit-exact vs the"
                   " reference C); single stream"),
-    }))
+    })
 
     # ---- digital_voice end-to-end (GSM over GMSK) ----------------------
     from grtpu.models.digital_voice import DigitalVoiceRx, DigitalVoiceTx
@@ -185,7 +171,7 @@ def main():
     dv_x = a_sec / dv_s
     # host-vs-device boundary: the GSM codec is a device scan; the
     # bit/frame plumbing + GMSK mod/demod host paths dominate here
-    print(json.dumps({
+    emit({
         "metric": "digital_voice_end_to_end",
         "value": round(dv_x, 2),
         "unit": "x_realtime",
@@ -194,7 +180,7 @@ def main():
         "notes": ("single-stream TX+RX (GSM 06.10 over GMSK); host"
                   " framing + per-call dispatch bound — the vmapped GSM"
                   " bank above is the scaling path"),
-    }))
+    })
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 The production-serving shape of the framework: a long-running process
 ingesting a raw IQ sample stream over the network (the reference's
 gr_udp_source deployment idiom, gnuradio-examples/python/network/), running
-the WBFM receiver as one jitted XLA program per chunk on the TPU, and
+the WBFM receiver as one jitted XLA program per chunk on the GPU, and
 streaming demodulated audio back out.  Ingest uses the native C++ data
 plane when available (receiver thread -> double-mapped ring) so datagram
 handling never blocks the chunk loop.

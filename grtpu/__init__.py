@@ -1,17 +1,18 @@
-"""grtpu — a TPU-native software-defined-radio framework.
+"""grtpu — a software-defined-radio framework in JAX.
 
 A from-scratch re-design of the capabilities of GNU Radio 3.5.0
-(reference: gnychis/gnuradio-3.5.0-dmr) for TPU hardware:
+(reference: gnychis/gnuradio-3.5.0-dmr) for accelerators through XLA:
 
 * Signal chains are pure JAX functions over batched *time-blocks*
   rather than a thread-per-block C++ scheduler over circular buffers
   (reference: gnuradio-core/src/lib/runtime/gr_scheduler_tpb.cc).
 * Filter history / overlap-save tails are explicit carried state managed
   by the executor (reference: gr_buffer nzero_preload,
-  gr_flat_flowgraph.cc:124-152) — on multi-chip meshes they become halo
-  exchanges over ICI collectives.
-* Hot kernels (FIR / polyphase / FFT convolution) are Pallas TPU kernels
-  mapping onto the MXU (reference: volk/ + gr_fir_* SIMD engines).
+  gr_flat_flowgraph.cc:124-152) — on multi-device meshes they become halo
+  exchanges over collectives.
+* Hot kernels (FIR / polyphase / FFT convolution) are matrix products and
+  FFTs that XLA hands to the card's libraries (reference: volk/ +
+  gr_fir_* SIMD engines).
 * Feedback loops (PLL / Costas / AGC / clock recovery) are `lax.scan`
   recurrences with explicit state pytrees (reference: gri_control_loop,
   digital_clock_recovery_mm_cc).

@@ -6,7 +6,7 @@ gr_simple_squelch_cc, gr_pwr_squelch, gr_pll_{refout_cc,freqdet_cf,
 carriertracking_cc}, gr_fmdet_cf, gr_probe_avg_mag_sqrd_*.
 
 Feedback loops (AGC, PLL) are lax.scan recurrences over the time-block with
-explicit carried state — the TPU-native form of the reference's per-sample
+explicit carried state — the vectorized form of the reference's per-sample
 member-variable updates (gri_agc2_cc.h, gri_control_loop.cc:34-80).
 """
 

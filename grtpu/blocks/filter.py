@@ -1,4 +1,4 @@
-"""Filter blocks: the gr filter-library analog over the MXU kernel substrate.
+"""Filter blocks: the gr filter-library analog over the matmul/FFT kernels.
 
 Analogs (SURVEY.md §2.3): gr_fir_filter_XXX, gr_interp_fir_filter_XXX,
 gr_rational_resampler_base_XXX, gr_freq_xlating_fir_filter_XXX,
@@ -45,32 +45,16 @@ class FirFilter(Block):
         super().__init__(name)
         self.taps = np.asarray(
             taps, np.complex64 if tap_t == "c" else np.float32)
-        # FFT path wins for long filters (VPU FFT flops < matmul overhead)
+        # FFT path for long filters (fewer flops than the Toeplitz matmul)
         if impl == "auto":
-            impl = "fft" if len(taps) >= 128 and decimation == 1 else "mxu"
-        if impl == "pallas" and sig not in ("fff", "ccf", "ccc"):
-            raise ValueError("impl='pallas' supports fff/ccf/ccc streams "
-                             "(the VMEM kernel works on f32 planes)")
+            impl = "fft" if len(taps) >= 128 and decimation == 1 else "matmul"
+        if impl not in ("fft", "matmul"):
+            raise ValueError(
+                f"impl must be 'auto', 'fft' or 'matmul', got {impl!r}")
         self.impl = impl
-        self._sig = sig
         self._out_cast = _dt(out_t)
 
     def apply(self, state, x):
-        if self.impl == "pallas":
-            # grtpu.ops.pallas_fir: VMEM-resident MXU kernels — fir_decim
-            # phase-splits decimating filters so every MXU op stays dense,
-            # and complex streams ride the same grid as extra plane rows
-            # (measured 2-3x over the XLA matmul path on the WBFM bank's
-            # decimating FIR, benchmarks/wfm_bench.py)
-            from grtpu.ops import pallas_fir as pf
-
-            if self._sig == "fff":
-                y = pf.fir_decim(x, self.taps, self.decim)
-            elif self._sig == "ccf":
-                y = pf.fir_decim_c(x, self.taps, self.decim)
-            else:  # ccc
-                y = pf.fir_decim_cc(x, self.taps, self.decim)
-            return state, y.astype(self._out_cast)
         f = _fftfir if self.impl == "fft" else _fir
         y = f(x, self.taps, self.decim)
         if self._out_cast == jnp.int16:

@@ -21,7 +21,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from grtpu.utils.xfer import to_numpy
 from grtpu.runtime.block import Block, Port
 
 
@@ -382,7 +381,7 @@ class VectorSink(Block):
         return state, ()
 
     def data(self):
-        return None if self.captured is None else to_numpy(self.captured[0])
+        return None if self.captured is None else np.asarray(self.captured[0])
 
 
 class NullSink(Block):
@@ -409,7 +408,7 @@ class ProbeSignal(Block):
         return state, ()
 
     def level(self):
-        return None if self.captured is None else to_numpy(self.captured[0])[-1]
+        return None if self.captured is None else np.asarray(self.captured[0])[-1]
 
 
 # ------------------------------------------------------- symbol/bit packing

@@ -98,8 +98,8 @@ def _dwt_matrix(size: int, order: int, forward: bool) -> np.ndarray:
     gsl_wavelet_transform_forward runs periodized lowpass/highpass steps
     on the leading n elements for n = size, size/2, ..., 2; each step is
     linear and orthogonal, so the whole transform composes into a single
-    matrix — on TPU the per-vector DWT is then one (B, size) @ (size,
-    size) MXU matmul instead of a log2(size)-deep gather pyramid.  The
+    matrix — the per-vector DWT is then one (B, size) @ (size, size)
+    matmul instead of a log2(size)-deep gather pyramid.  The
     inverse transform is its transpose.
     """
     if size & (size - 1):
@@ -132,9 +132,9 @@ class WaveletFF(Block):
     per-vector Daubechies DWT of the full gsl pyramid, ``order`` = wavelet
     length (even, 2..20+), ``forward=False`` for the inverse transform.
 
-    TPU-native: the whole multi-level periodized transform is pre-composed
-    into one orthogonal matrix (host numpy constant) and applied as a
-    single batched MXU matmul; see _dwt_matrix.
+    The whole multi-level periodized transform is pre-composed into one
+    orthogonal matrix (host numpy constant) and applied as a single
+    batched matmul; see _dwt_matrix.
     """
 
     def __init__(self, size: int = 1024, order: int = 20,
@@ -434,7 +434,7 @@ class Threshold(Block):
     vector-threshold constructor serves its OFDM peak search; that role is
     covered by PeakDetector/peak sync in grtpu.)
 
-    TPU-native: instead of a per-sample scan, the chunk's output is the
+    Vectorized: instead of a per-sample scan, the chunk's output is the
     value at each position's most recent crossing event — one cummax over
     `2*index + direction` (gather-free)."""
 

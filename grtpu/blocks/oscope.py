@@ -39,8 +39,7 @@ class OscopeSink(Block):
         when no trigger found)."""
         if self.captured is None:
             return []
-        from grtpu.utils.xfer import to_numpy
-        x = to_numpy(self.captured[0])
+        x = np.asarray(self.captured[0])
         n = self.frame_size
         sig = x.real if np.iscomplexobj(x) else x
         if slope == "pos":

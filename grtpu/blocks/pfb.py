@@ -273,8 +273,8 @@ def pfb_clock_sync_windowed(x: jnp.ndarray, state, sps: float,
     (float sps is the reference contract, gr_pfb_clock_sync_ccf.cc).
 
     Same recursion as pfb_clock_sync, but the per-symbol dynamic_slice into
-    the chunk and the bank[ki] row gather (both ~100x the arithmetic cost
-    inside a scan on TPU — see CLAUDE.md) are replaced by static-stride
+    the chunk and the bank[ki] row gather (gathers inside a scan) are
+    replaced by static-stride
     per-symbol rows plus in-row / in-bank one-hot selects.  Rows follow the
     floor grid I_t = floor(t*sps) (loops._window_rows); since the exact
     loop's pointer is base_t = t*sps + R_t with R_t the integer sum of
@@ -308,8 +308,8 @@ def pfb_clock_sync_windowed(x: jnp.ndarray, state, sps: float,
                           ).sum() for j in range(kp)])
         ki = jnp.clip(jnp.round(k).astype(jnp.int32), 0, nfilts - 1)
         koh = (nf_iota == ki).astype(jnp.float32)
-        out = (win * (koh @ bj)).sum()
-        dout = (win * (koh @ dj)).sum()
+        out = (win * jnp.dot(koh, bj, precision=_HI)).sum()
+        dout = (win * jnp.dot(koh, dj, precision=_HI)).sum()
         err = jnp.clip((dout * jnp.conj(out)).real, -1.0, 1.0)
         rate_f2 = jnp.clip(rate_f + beta * err, -max_dev, max_dev)
         k2 = k + rate_f2 + alpha * err
@@ -319,8 +319,7 @@ def pfb_clock_sync_windowed(x: jnp.ndarray, state, sps: float,
         return (k3, rate_f2, rel2), out.astype(x.dtype)
 
     # unroll=16: per-symbol steps are tiny, iteration overhead dominates
-    # (+24% measured at 256 vmapped streams on v5e; same trick as the
-    # windowed M&M in digital/loops.py)
+    # (same trick as the windowed M&M in digital/loops.py)
     new_state, ys = jax.lax.scan(f, state, rows, unroll=16)
     return ys, new_state
 
@@ -338,8 +337,8 @@ def pfb_clock_sync_chunked(x: jnp.ndarray, state, sps: float,
     """Chunk-batched pfb_clock_sync with pfb_clock_sync_windowed's loop
     semantics (same state, same floor-grid rows).
 
-    TPU-first reformulation of the per-symbol scan (op-latency bound at
-    ~19 Msps aggregate in vmapped banks).  Per chunk of Lc symbols:
+    Reformulation of the per-symbol scan, which is op-latency bound in
+    vmapped banks.  Per chunk of Lc symbols:
 
       1. predict the filter-phase trajectory from the carry with the
          errors zeroed — k_t = k0 + t*rate is exact up to the intra-chunk
@@ -403,7 +402,7 @@ def pfb_clock_sync_chunked(x: jnp.ndarray, state, sps: float,
         o = (I - I[0]).astype(jnp.int32) + p
         oh = (pos_iota[None, :] == o[:, None]).astype(jnp.bfloat16)
         # window extraction as ONE (Lc, npos) @ (npos, kp) one-hot matmul
-        # per real plane — MXU work instead of kp masked VPU reductions
+        # per real plane — one matmul instead of kp masked reductions
         # (the masked form was VPU-FLOP bound at ~195 Msps aggregate).
         # bf16: the 0/1 selection is exact; value rounding is ~48 dB,
         # far below the timing loop's own noise and the chain SNR.

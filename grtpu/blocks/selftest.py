@@ -15,8 +15,8 @@ Analogs (SURVEY.md §2.4 coding/framing):
 
 The checkers run their exact state machines host-side over the captured
 stream (they are diagnostic fixtures, not signal path); the source is a
-normal stream block.  Stream item type is int32 (the TPU container for
-the reference's shorts; values stay in uint16 range).
+normal stream block.  Stream item type is int32 (the container for the
+reference's shorts; values stay in uint16 range).
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ import numpy as np
 import jax.numpy as jnp
 
 from grtpu.runtime.block import Block, Port
-from grtpu.utils.xfer import to_numpy
 
 BUFSIZE = 2048 - 1  # ensure pattern isn't packet aligned (reference :61)
 
@@ -55,7 +54,7 @@ class Lfsr32kSource(Block):
 
     Gather-free: the table is tiled host-side so one dynamic_slice at the
     carried phase yields the chunk (indexing with a traced index array is
-    a gather — the repo-wide TPU anti-pattern)."""
+    a gather)."""
 
     def __init__(self, name=None):
         self.out_ports = (Port(jnp.int32),)
@@ -87,7 +86,7 @@ class _CheckBase(Block):
     def _stream(self) -> np.ndarray:
         if self.captured is None:
             return np.zeros(0, np.int64)
-        return (to_numpy(self.captured[0]).astype(np.int64)) & 0xFFFF
+        return (np.asarray(self.captured[0]).astype(np.int64)) & 0xFFFF
 
 
 class CheckLfsr32k(_CheckBase):

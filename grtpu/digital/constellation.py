@@ -6,8 +6,8 @@ gr-digital/lib/digital_constellation.cc): points, rotational symmetry,
 dimensionality, generic nearest-point decision maker, and the hard-coded
 fast deciders for BPSK/QPSK/DQPSK/8PSK.
 
-TPU-native: decisions are vectorized over whole symbol blocks — the
-nearest-point rule is a (n_sym, n_points) distance matrix reduce (MXU/VPU
+Decisions are vectorized over whole symbol blocks — the
+nearest-point rule is a (n_sym, n_points) distance matrix reduce (matmul
 friendly) instead of a per-symbol loop.
 """
 

@@ -7,9 +7,9 @@ Analogs:
   * gr_correlate_access_code_tag_bb: same detection, emitted as stream tags.
   * gr_pn_correlator_cc, gr_simple_correlator (§2.4 coding/framing group).
 
-TPU-native: the reference shifts one 64-bit register per sample; here the
+Vectorized: the reference shifts one 64-bit register per sample; here the
 whole time-block's sliding mismatch counts come from one +-1 correlation
-(an MXU/VPU-friendly FIR with the code as taps).
+(a FIR with the code as taps).
 """
 
 from __future__ import annotations
@@ -328,9 +328,7 @@ class FramerSink(Block):
     def captured(self, vals):
         self._captured = vals
         if vals:
-            from grtpu.utils.xfer import to_numpy
-
-            self._parse(np.asarray(to_numpy(vals[0])).astype(np.uint8))
+            self._parse(np.asarray(vals[0]).astype(np.uint8))
 
     def _parse(self, stream: np.ndarray):
         from grtpu.digital import packet as pu

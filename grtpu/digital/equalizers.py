@@ -4,7 +4,7 @@ Analogs (gr-digital, SURVEY.md §2.7): digital_cma_equalizer_cc,
 digital_lms_dd_equalizer_cc, digital_kurtotic_equalizer_cc — all built on
 gr_adaptive_fir_ccc (per-output tap update).
 
-TPU-native: the tap-update recurrence is a lax.scan carrying the tap
+The tap-update recurrence is a lax.scan carrying the tap
 vector; each step is one K-tap dot + rank-1 update (VPU).  Sample-rate
 operation (sps=1 after matched filtering / decimation), like the reference
 blocks' typical use.

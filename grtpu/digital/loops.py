@@ -33,6 +33,9 @@ import numpy as np
 from grtpu.ops import dsp
 from grtpu.ops.mmse_interp import NSTEPS, NTAPS, mmse_taps
 
+# f32 products that feed a loop stay in full f32 (no TF32 rounding)
+_HI = jax.lax.Precision.HIGHEST
+
 
 # ------------------------------------------------------------------ costas
 def costas_phase_detector(order: int):
@@ -275,9 +278,9 @@ def fll_band_edge_chunked(x: jnp.ndarray, state, samps_per_sym: float,
                           gains=None, chunk: int = 64):
     """Chunk-batched FLL with the same loop semantics as fll_band_edge.
 
-    TPU-first reformulation of the per-sample scan (which is op-LATENCY
-    bound: vmapped banks measured ~70 Msps aggregate regardless of channel
-    count).  Key observation: the frequency error |BE_up(x_rot)|^2 -
+    Reformulation of the per-sample scan, which is op-LATENCY bound (a
+    vmapped bank's rate does not grow with its channel count).  Key
+    observation: the frequency error |BE_up(x_rot)|^2 -
     |BE_lo(x_rot)|^2 is INDEPENDENT of the NCO phase — the e^{-j phase}
     factor drops out of the magnitudes — and depends on the loop frequency
     only through the slow e^{-j freq k} ramp across the K-tap window.  So
@@ -317,8 +320,8 @@ def fll_band_edge_chunked(x: jnp.ndarray, state, samps_per_sym: float,
         W = jnp.stack([jax.lax.dynamic_slice_in_dim(seg, j, chunk)
                        for j in range(K)], axis=1)       # (chunk, K)
         rot = jnp.exp(-1j * freq * karr).astype(jnp.complex64)
-        ou = W @ (upj * rot)
-        ol = W @ (loj * rot)
+        ou = jnp.dot(W, upj * rot, precision=_HI)
+        ol = jnp.dot(W, loj * rot, precision=_HI)
         errs = jnp.clip(jnp.real(ou) ** 2 + jnp.imag(ou) ** 2
                         - jnp.real(ol) ** 2 - jnp.imag(ol) ** 2, -1.0, 1.0)
         freq_traj = jnp.clip(freq + beta * jnp.cumsum(errs), -fmax, fmax)
@@ -471,8 +474,7 @@ def diff_phasor(x: jnp.ndarray, state) -> Tuple[jnp.ndarray, jnp.ndarray]:
 # ------------------------------------------------- windowed (fast) M&M
 #
 # The mask-and-compact M&M above does a per-symbol dynamic_slice into the
-# whole chunk — measured ~150x slower than the surrounding arithmetic on
-# TPU (vmapped dynamic slices lower to gathers).  In lock the sample
+# whole chunk (vmapped dynamic slices lower to gathers).  In lock the sample
 # pointer stays within a bounded drift of t*sps, so for integer sps the
 # chunk can be pre-windowed into per-symbol rows with STATIC strides and
 # the bounded drift handled by a one-hot select inside the row — no
@@ -514,8 +516,8 @@ def _window_rows(x: jnp.ndarray, sps: float, W: int, width: int):
     Symbol t's row starts at I_t = floor(t*P/Q) (P/Q = rationalized sps):
     rows[t, k] = x[I_t + k], L = ceil(P/Q) + 2W + width.  x carries W
     leading history samples (the executor halo).  Fractional rates build Q
-    interleaved stride-P groups (strided slices, never an index gather —
-    TPU gathers are ~150x the arithmetic, see CLAUDE.md) with static
+    interleaved stride-P groups (strided slices, never an index gather)
+    with static
     residue offsets c_r = floor(r*P/Q).
 
     Returns (rows, d, T, L) with d[t] = I_{t+1} - I_t, the per-symbol
@@ -576,7 +578,8 @@ def _mm_windowed(x, state, sps, gain_omega, gain_mu, omega_relative_limit,
         win = jnp.stack([(oh * jax.lax.dynamic_slice_in_dim(row, j, npos)
                           ).sum() for j in range(NTAPS)])
         phase = jnp.round(mu * NSTEPS).astype(jnp.int32)
-        taps = (ph_iota == phase).astype(jnp.float32) @ bank
+        taps = jnp.dot((ph_iota == phase).astype(jnp.float32), bank,
+                       precision=_HI)
         samp = (win * taps).sum()
         err = jnp.clip(jnp.real(jnp.conj(slc(last)) * samp
                                 - jnp.conj(slc(samp)) * last), -1.0, 1.0)
@@ -590,8 +593,7 @@ def _mm_windowed(x, state, sps, gain_omega, gain_mu, omega_relative_limit,
         return MMWinState(step - adv, omega2, rel2, samp), samp
 
     # unroll: the per-symbol step is tiny, so scan iteration overhead
-    # dominates; unrolling 16 steps per iteration measures +55% aggregate
-    # on v5e (94 -> 145 Msym/s at 1024 streams) and plateaus beyond
+    # dominates; 16 steps per iteration amortize it
     new_state, ys = jax.lax.scan(f, state, (rows, d), unroll=16)
     return ys, new_state
 

@@ -93,7 +93,7 @@ class GmskModem:
         fm = dsp.quadrature_demod(
             jnp.concatenate([jnp.zeros(1, jnp.complex64), xf]), 1.0)
         # windowed gather-free M&M (loops.clock_recovery_mm_ff_windowed):
-        # bit-exact recursion, ~56x the dynamic-slice loop on TPU
+        # bit-exact recursion without per-symbol dynamic slices
         W = 32
         L = self.sps + 2 * W + loops.NTAPS
         n = fm.shape[0]
@@ -306,7 +306,7 @@ class Fsk4Modem:
         """Demodulate a BANK of bursts on device: x (C, N) complex64 ->
         (C, n_sym) dibits.  The TDMA base-station path: every channel /
         slot demodulates in one jitted program (quad demod -> matched
-        filter on the MXU -> vectorized eye-metric phase pick with a
+        filter as a matmul -> vectorized eye-metric phase pick with a
         one-hot select — no gathers, no per-channel python).  Same
         open-loop algorithm as :meth:`demodulate_burst`."""
         if not hasattr(self, "_burst_bank"):

@@ -8,7 +8,7 @@ whitened payload+CRC32 + trailer); the decoder hunts access codes in the
 demodulated bit stream, checks the CRC, and re-emits the recovered payload
 bytes as the original item stream.
 
-TPU-native: the reference routes packets through message queues and python
+Here the reference routes packets through message queues and python
 watcher threads (packet.py _packet_decoder_thread); here both directions
 are in-graph.  Encoding is fixed-rate (payload_length in -> one packet's
 bytes out) and fully traced (CRC32 as a byte scan over the table,

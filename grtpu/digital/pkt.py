@@ -5,7 +5,7 @@ via ``send_pkt`` (a MsgQueue feeding the modulator), ``demod_pkts`` watches
 the demodulated bit stream for access codes and posts CRC-checked payloads
 to a callback through a queue-watcher thread.
 
-Burst-mode TPU adaptation: samples accumulate per packet (the reference
+Burst-mode adaptation: samples accumulate per packet (the reference
 streams continuously; here each send_pkt yields a sample burst, and the
 receiver may be fed arbitrary sample streams incrementally)."""
 

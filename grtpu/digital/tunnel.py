@@ -11,7 +11,7 @@ Analog of gr-digital/examples/narrowband/tunnel.py:
   50 ms), transmits via the PHY; received CRC-good payloads are written
   back to the interface.
 
-TPU adaptation: the PHY is burst-mode — a transmit produces one sample
+Adaptation: the PHY is burst-mode — a transmit produces one sample
 burst onto a ``Medium``; receivers demodulate bursts as they arrive.
 ``Medium`` models shared air: every endpoint hears every burst, the
 channel reports busy for the burst's real air time, and an optional

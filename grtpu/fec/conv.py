@@ -4,7 +4,7 @@ Analogs: gnuradio-core/src/lib/viterbi/viterbi.c (encode + k=7 r=1/2
 Viterbi with the CCSDS polynomials) and the gr_encode/decode_ccsds_27_bb
 blocks (SURVEY.md §2.4).
 
-TPU-native design: the encoder is a fully-vectorized windowed parity; the
+Design: the encoder is a fully-vectorized windowed parity; the
 decoder is a ``lax.scan`` over time carrying all 64 path metrics as one
 vector — the classic accelerator-friendly Viterbi (per-step work is a
 (64,2) gather + max-reduce, all on the VPU), followed by a reverse scan
@@ -115,8 +115,8 @@ def viterbi_decode_27(symbols: jnp.ndarray) -> jnp.ndarray:
 
     # traceback: start from best final state, walk backwards.  The state is
     # carried as a one-hot vector so each step is a static 64x64 select +
-    # matvec instead of dynamic gathers (dynamic gathers inside a scan are
-    # ~100x slower on TPU — see grtpu.trellis.algorithms.viterbi).
+    # matvec instead of dynamic gathers inside the scan (as in
+    # grtpu.trellis.algorithms.viterbi).
     s_end = jnp.argmax(pm_final).astype(jnp.int32)
     p0_oh = np.zeros((NSTATES, NSTATES), np.float32)
     p1_oh = np.zeros((NSTATES, NSTATES), np.float32)
@@ -129,7 +129,7 @@ def viterbi_decode_27(symbols: jnp.ndarray) -> jnp.ndarray:
     def back(s_oh, dec_t):
         bit = (s_oh * parity).sum()
         M = jnp.where(dec_t[:, None], p1j, p0j)
-        return s_oh @ M, bit
+        return jnp.dot(s_oh, M, precision=jax.lax.Precision.HIGHEST), bit
 
     _, bits_rev = jax.lax.scan(back, s0_oh, decisions, reverse=True)
     return jnp.round(bits_rev).astype(jnp.uint8)

@@ -7,7 +7,7 @@ time + constellation tabs over SpectrumGUIClass) and gr-wxgui
 numbersink2.py, histosink.py).  The windowing/averaging/trigger MATH of
 those sinks is kept exactly; the interactive toolkit is replaced with
 offline matplotlib rendering (SURVEY.md §7 declares live GUIs a non-goal —
-on a headless TPU host the artifact of record is a file).
+on a headless accelerator host the artifact of record is a file).
 
 Each sink is a normal grtpu Block: connect it in a Graph, run the
 executor, then call ``render(path)`` (and/or the numeric accessors, which
@@ -23,7 +23,6 @@ import jax.numpy as jnp
 
 from grtpu.runtime.block import Block, Port
 from grtpu.blocks.oscope import OscopeSink
-from grtpu.utils.xfer import to_numpy
 
 
 def _mpl():
@@ -76,7 +75,7 @@ class FftSink(Block):
         """All per-frame log-power spectra, (n_frames, fft_size) dB."""
         if self.captured is None:
             return np.zeros((0, self.fft_size), np.float32)
-        x = to_numpy(self.captured[0])
+        x = np.asarray(self.captured[0])
         n = self.fft_size
         nf = len(x) // n
         if nf == 0:
@@ -207,7 +206,7 @@ class ConstSink(Block):
     def points(self) -> np.ndarray:
         if self.captured is None:
             return np.zeros(0, np.complex64)
-        return to_numpy(self.captured[0])[-self.max_points:]
+        return np.asarray(self.captured[0])[-self.max_points:]
 
     def render(self, path: str, title: str = "constellation") -> str:
         plt = _mpl()
@@ -244,7 +243,7 @@ class NumberSink(Block):
         """The running-average trajectory over the captured stream."""
         if self.captured is None:
             return np.zeros(0, np.float32)
-        x = to_numpy(self.captured[0])
+        x = np.asarray(self.captured[0])
         if np.iscomplexobj(x):
             x = np.abs(x)  # complex meter reads magnitude
         x = x.astype(np.float64)
@@ -288,7 +287,7 @@ class HistoSinkDisplay(Block):
     def histogram(self):
         if self.captured is None:
             return np.zeros(self.nbins), np.linspace(0, 1, self.nbins + 1)
-        x = to_numpy(self.captured[0])
+        x = np.asarray(self.captured[0])
         return np.histogram(x, bins=self.nbins)
 
     def render(self, path: str, title: str = "histogram") -> str:

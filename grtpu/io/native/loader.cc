@@ -1,7 +1,7 @@
 // Native host data-loader: UDP ingest/egress pumps, write-behind file
 // sink, and fused format converters reading straight out of the ring.
 //
-// TPU-native analog of the reference's C++ I/O data plane:
+// Analog of the reference's C++ I/O data plane:
 //   * gr_udp_source / gr_udp_sink (gnuradio-core/src/lib/io/gr_udp_source.h:
 //     39-99, gr_udp_sink.h:39-86) — raw-datagram sample streaming, default
 //     1472-byte payload, zero-length datagram = EOF;

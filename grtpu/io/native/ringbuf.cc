@@ -1,7 +1,7 @@
 // Host-side single-writer/single-reader ring buffer with the double-VM-map
 // trick, plus a threaded file reader that fills it.
 //
-// TPU-native analog of the reference's buffer layer
+// Analog of the reference's buffer layer
 // (gnuradio-core/src/lib/runtime/gr_vmcircbuf_mmap_shm_open.cc:102-124 —
 // one physical region mapped twice back-to-back so wraparound is
 // linear-addressable; gr_buffer.cc single-writer/multi-reader protocol).

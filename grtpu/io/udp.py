@@ -5,7 +5,7 @@ Analogs (SURVEY.md §2.6/§5.8): gr_udp_source / gr_udp_sink
 raw-datagram sample streaming, default payload 1472 bytes, zero-length
 datagram as EOF, optional blocking wait.
 
-Role in the TPU framework: host-side ingest/egress feeding the executor's
+Role in the framework: host-side ingest/egress feeding the executor's
 chunk loop (multi-chip scale-out uses ICI collectives, not UDP — see
 grtpu.parallel; UDP remains for interop with external sample sources).
 """

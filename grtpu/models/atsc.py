@@ -227,14 +227,13 @@ def trellis_encode(dibits: np.ndarray,
 def trellis_decode(levels: np.ndarray) -> np.ndarray:
     """12-phase Viterbi decode: soft 8-level symbols -> dibit stream.
 
-    TPU-native: the 12 interleaved trellis phases are independent, so all
+    Vectorized: the 12 interleaved trellis phases are independent, so all
     12 Viterbi scans run as ONE vmapped call (the reference's
     atsci_viterbi_decoder mux loops them serially)."""
     x = np.asarray(levels, np.float32)
     assert len(x) % NUM_TRELLIS == 0
     out = trellis_decode_device(jnp.asarray(x.reshape(-1, NUM_TRELLIS).T))
-    from grtpu.utils import xfer
-    return np.asarray(xfer.to_numpy(out)).T.reshape(-1).astype(np.int32)
+    return np.asarray(out).T.reshape(-1).astype(np.int32)
 
 
 @jax.jit

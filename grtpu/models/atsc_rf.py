@@ -1,6 +1,7 @@
 """ATSC 8-VSB RF front end: FPLL, bit timing, field sync, LMS equalizer.
 
-Reference behavior (gr-atsc, re-designed TPU-first — not ported):
+Reference behavior (gr-atsc, re-designed for vectorized execution — not
+ported):
   * GrAtscFPLL.cc — AGC + NCO mix + single-pole I/Q filters + atan2 phase
     detector (clamped to +-pi/2), 2nd-order loop alpha=1e-3, beta=alpha^2/4.
     Inherently per-sample feedback -> lax.scan.
@@ -8,7 +9,7 @@ Reference behavior (gr-atsc, re-designed TPU-first — not ported):
     interpolator (ratio rx_clock/symbol ~2), 4-bit 1001 correlator feeding a
     saturating 832-bin integrator, quad filter (-1,-1,+1,+1) timing-error
     sampler; timing adjust/seg-lock update once per 832-symbol wrap.
-    TPU re-design: because the timing adjustment only changes at wrap
+    Re-design: because the timing adjustment only changes at wrap
     boundaries, the per-symbol (mu, w, loop) recurrence is linear *within a
     segment* and has a closed form -> one lax.scan step per SEGMENT: compute
     all 832 interpolation positions vectorized, batch-gather 8-tap windows,
@@ -22,7 +23,7 @@ Reference behavior (gr-atsc, re-designed TPU-first — not ported):
     field-sync symbols (BETA 5e-5, npretaps 204 -> data window x[k-51..k+204]
     for output k).  Re-design: LMS training is a 693-step scan once per
     field; the field's remaining 259k symbols are filtered with the frozen
-    taps as a single FIR matmul on the MXU.
+    taps as a single FIR matmul.
   * GrAtscFieldSyncMux/Demux — field assembly on TX (832-symbol field sync
     segment: 1001, PN511, 3xPN63 with middle inverted on field 2, 24 VSB
     mode symbols, 92 reserved, 12 precode symbols) and field disassembly on
@@ -44,6 +45,9 @@ from jax import lax
 
 from grtpu.ops import mmse_interp
 from grtpu.utils import firdes
+
+# f32 equalizer products stay in full f32 (no TF32 rounding)
+_HI = lax.Precision.HIGHEST
 
 SEGMENT_LEN = 832                    # symbols, incl. 4 seg-sync symbols
 DSEGS_PER_FIELD = 312
@@ -417,9 +421,9 @@ def fs_correlate(symbols) -> Tuple[jnp.ndarray, jnp.ndarray]:
     from grtpu.ops.fir import fir_filter
     n = symbols.shape[0]
     bits_pm = jnp.where(symbols >= 0, 1.0, -1.0).astype(jnp.float32)
-    # matched correlation m[p] = sum_k pattern[k]*bits[p+k] via the MXU FIR
-    # (convolution convention: reverse the pattern; pad the tail so every
-    # start position is evaluated).  jnp.correlate lowers poorly on TPU.
+    # matched correlation m[p] = sum_k pattern[k]*bits[p+k] via the matmul
+    # FIR (convolution convention: reverse the pattern; pad the tail so
+    # every start position is evaluated).
     pat = (_FS_PATTERN * 2 - 1).astype(np.float32)
     L = len(pat)
     xp = jnp.concatenate([bits_pm, jnp.zeros(L - 1, jnp.float32)])
@@ -441,7 +445,7 @@ def fs_correlate(symbols) -> Tuple[jnp.ndarray, jnp.ndarray]:
 
 
 # ---------------------------------------------------------------------------
-# LMS equalizer (atsci_equalizer_lms.cc), train-per-field + MXU filter.
+# LMS equalizer (atsci_equalizer_lms.cc), train-per-field + matmul filter.
 # ---------------------------------------------------------------------------
 EQ_NTAPS = 256
 EQ_NPRETAPS = int(EQ_NTAPS * 0.8)
@@ -463,9 +467,9 @@ def _lms_train(taps, x_train, d_train):
 
     def step(t, wd):
         w, d = wd
-        y = jnp.dot(w, t)
+        y = jnp.dot(w, t, precision=_HI)
         e = y - d
-        return t - mu * e * w / (jnp.dot(w, w) + 1e-3), y
+        return t - mu * e * w / (jnp.dot(w, w, precision=_HI) + 1e-3), y
 
     return lax.scan(step, taps, (wins, d_train))
 
@@ -481,7 +485,7 @@ def _eq_filter(taps, x):
 
 class AtscEqualizerLms:
     """Per-field: adapt on the known field-sync symbols, then equalize the
-    field's data with the frozen taps (one FIR on the MXU).
+    field's data with the frozen taps (one matmul FIR).
 
     Differences from the reference (which leans on a converged AGC and many
     fields of adaptation): on the first field the taps are initialized to a
@@ -570,9 +574,10 @@ def _dfe_train(wff, wfb, x_train, d_train, mu):
     def step(carry, inp):
         wf, wb = carry
         xw, dw, d, a = inp
-        y = jnp.dot(wf, xw) - jnp.dot(wb, dw)
+        y = jnp.dot(wf, xw, precision=_HI) - jnp.dot(wb, dw, precision=_HI)
         e = a * (y - d)
-        nrm = jnp.dot(xw, xw) + jnp.dot(dw, dw) + 1e-3
+        nrm = (jnp.dot(xw, xw, precision=_HI)
+               + jnp.dot(dw, dw, precision=_HI) + 1e-3)
         return (wf - mu * e * xw / nrm, wb + mu * e * dw / nrm), y
 
     (wff, wfb), _ = lax.scan(step, (wff, wfb),
@@ -583,13 +588,13 @@ def _dfe_train(wff, wfb, x_train, d_train, mu):
 @jax.jit
 def _dfe_filter(wff, wfb, x_ff, d_init):
     """Decision-feedback filtering: the feedforward part is ONE dense FIR
-    over the whole field (rides the MXU); only the inherently sequential
+    over the whole field (one matmul); only the inherently sequential
     feedback — a 192-tap dot against the carried ring of sliced past
     decisions — runs in the scan (unroll amortizes iteration overhead)."""
     ff = jnp.convolve(x_ff, wff[::-1], mode="valid")
 
     def step(ring, ffk):
-        y = ffk - jnp.dot(wfb, ring)
+        y = ffk - jnp.dot(wfb, ring, precision=_HI)
         d = _slice8(y)
         return jnp.concatenate([d[None], ring[:-1]]), y
 

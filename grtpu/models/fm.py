@@ -242,7 +242,7 @@ class WfmRcvPll(HierBlock):
         pilot_taps = firdes.complex_band_pass(
             1.0, quad_rate, 18.6e3, 19.4e3, 0.6e3)
         from grtpu.blocks.filter import FirFilter
-        pilot = FirFilter(1, pilot_taps, "ccc", name=None, impl="mxu")
+        pilot = FirFilter(1, pilot_taps, "ccc", name=None, impl="matmul")
         # complex input expected: route composite through float->complex
         from grtpu.blocks.convert import FloatToComplex
         f2c = FloatToComplex(1)

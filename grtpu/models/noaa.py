@@ -127,7 +127,7 @@ class HrptDeframer(Block):
     a 60-bit shifter matched against HRPT_MINOR_FRAME_SYNC, then
     11084 data words of 10 MSB-first bits each.
 
-    TPU form: one lax.scan step per input sample carrying the packed
+    Form: one lax.scan step per input sample carrying the packed
     machine registers (the 60-bit shifter split across two uint32 lanes);
     each step emits a (6,) word slot + count (6 on sync detect, else 0/1)
     and the chunk is compacted to a contiguous prefix with a stable

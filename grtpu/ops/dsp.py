@@ -4,7 +4,7 @@ Analogs of:
   * gr_rotator.h / gri_fxpt NCO (gnuradio-core/src/lib/general/gr_fxpt.{h,cc},
     gr_rotator.h) — complex phase rotation and waveform synthesis.  The
     reference uses an incremental complex recurrence with periodic
-    renormalization to stay O(1)/sample on a CPU; on TPU we synthesize the
+    renormalization to stay O(1)/sample on a CPU; here we synthesize the
     whole time-block's phase ramp vectorized (exact, no drift) with a carried
     phase scalar.
   * gr_quadrature_demod_cf (general/gr_quadrature_demod_cf.cc:47-62) — FM
@@ -77,15 +77,10 @@ def fast_atan2(y: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """Branchless polynomial atan2 (gr_fast_atan2f analog), ~1e-5 rad.
 
     The reference trades accuracy for speed with a LUT
-    (general/gr_fast_atan2f.cc); a LUT is a gather on TPU (catastrophic —
-    see CLAUDE.md), so the same trade is an octant-reduced odd polynomial:
-    one divide + 5 FMAs + selects, all VPU-vectorizable.  Returns 0 at
-    (0, 0) like the reference.
-
-    NOTE (measured, 1x v5e): XLA's own ``jnp.arctan2`` lowering is already
-    VPU-optimal there (2513 vs 2250 Msamples/s through the WBFM bank), so
-    on TPU the EXACT path is also the fast path; this op exists for API
-    parity and for backends where the divide is cheaper.
+    (general/gr_fast_atan2f.cc); a LUT is a gather, so the same trade is
+    an octant-reduced odd polynomial: one divide + 5 FMAs + selects, all
+    vectorizable.  Returns 0 at (0, 0) like the reference.  The chains use
+    the exact ``jnp.arctan2``; this op exists for API parity.
     """
     ax, ay = jnp.abs(x), jnp.abs(y)
     mx = jnp.maximum(ax, ay)
@@ -138,7 +133,7 @@ def linear_recurrence(a: jnp.ndarray, b: jnp.ndarray, y0):
     The affine maps (a_i, b_i) compose associatively:
         (a2, b2) o (a1, b1) = (a2*a1, a2*b1 + b2)
     so the whole chunk solves in log-depth via ``associative_scan`` —
-    the TPU-native form of every first-order IIR (the reference's
+    the vectorized form of every first-order IIR (the reference's
     per-sample loops in gri_single_pole_iir / gri_iir).
     Returns (y, y_last)."""
 
@@ -189,12 +184,9 @@ def linear_recurrence_const(a: float, b: jnp.ndarray, y0,
 
     The impulse response a^k decays geometrically, so past
     n = ceil(log(tol)/log|a|) taps the recurrence IS a short FIR:
-    y = conv(b, [1, a, a^2, ...]) + a^(i+1)*y0 — one MXU matmul instead of
-    the associative scan's log-depth passes.  (Measured on v5e: comparable
-    to the scan inside the WBFM chain — both are far from the bottleneck —
-    but the FIR form composes with other MXU work and has no log-depth
-    intermediate materialization, so prefer it for long chunks / many
-    channels.)  Falls back to :func:`linear_recurrence` when a decays too
+    y = conv(b, [1, a, a^2, ...]) + a^(i+1)*y0 — one matmul instead of
+    the associative scan's log-depth passes (the FIR form has no log-depth
+    intermediate materialization).  Falls back to :func:`linear_recurrence` when a decays too
     slowly.  b may be (..., n) batched on leading axes (y0 broadcasting
     along them).  Returns (y, y_last)."""
     from grtpu.ops.fir import batch_fir_filter, fir_filter
@@ -259,7 +251,7 @@ def linear_recurrence_const(a: float, b: jnp.ndarray, y0,
 def single_pole_iir(x: jnp.ndarray, state, alpha: float):
     """y[i] = alpha*x[i] + (1-alpha)*y[i-1] (gri_single_pole_iir).
 
-    Constant stable pole -> the truncated-FIR MXU solver (exact to 1e-9;
+    Constant stable pole -> the truncated-FIR matmul solver (exact to 1e-9;
     falls back to the associative scan automatically for very slow decay,
     where the FIR would need >128 taps).  Returns (y, new_state)."""
     y, last = linear_recurrence_const(1.0 - float(alpha), alpha * x, state)
@@ -272,8 +264,8 @@ def iir_filter(x: jnp.ndarray, state, fftaps, fbtaps):
     (note the reference stores feedback taps with implied positive sign).
 
     state: (x_hist[len(ff)-1], y_hist[len(fb)-1]) most-recent-last.
-    Returns (y, new_state).  The feedforward half is computed with the MXU
-    FIR; only the feedback recurrence runs as a scan.
+    Returns (y, new_state).  The feedforward half is computed with the
+    matmul FIR; only the feedback recurrence runs as a scan.
     """
     ff = jnp.asarray(fftaps, jnp.float32)
     fb = jnp.asarray(fbtaps, jnp.float32)
@@ -290,9 +282,8 @@ def iir_filter(x: jnp.ndarray, state, fftaps, fbtaps):
         new_y_hist = y_hist
     elif nfb == 2:
         # first-order feedback (deemphasis & friends).  With a constant
-        # stable pole the truncated-FIR solver rides the MXU in one pass —
-        # measured +47% on the whole WBFM chain vs the associative scan's
-        # log-depth HBM passes (r4 ablation: chain 3.1 -> 4.6 Gsps).
+        # stable pole the truncated-FIR solver is one matmul pass instead
+        # of the associative scan's log-depth passes over memory.
         try:
             a1 = float(np.asarray(fbtaps)[1])
         except (TypeError, jax.errors.TracerArrayConversionError):
@@ -308,7 +299,8 @@ def iir_filter(x: jnp.ndarray, state, fftaps, fbtaps):
 
         def f(carry, vi):
             # carry: last nfb-1 outputs, most recent last
-            y = vi + jnp.dot(jnp.flip(carry), fb_r)
+            y = vi + jnp.dot(jnp.flip(carry), fb_r,
+                             precision=jax.lax.Precision.HIGHEST)
             carry = jnp.concatenate([carry[1:], y[None]])
             return carry, y
 

@@ -12,9 +12,9 @@ Contract matches grtpu.ops.fir.fir_filter exactly (convolution form):
 input length n + K - 1 -> output length n // decim,
 y[i] = sum_k taps[k] * x[i*decim + K - 1 - k].
 
-On TPU the batched FFTs map to XLA's native FFT; for K >= ~64 this path does
-~(10 log2 F)/K of the matmul path's FLOPs but runs on the VPU rather than
-the MXU — the auto heuristic in grtpu.blocks.filter picks per tap count.
+The batched FFTs map to XLA's FFT (cuFFT on the GPU); for K >= ~64 this
+path does ~(10 log2 F)/K of the matmul path's FLOPs — the auto heuristic in
+grtpu.blocks.filter picks per tap count.
 """
 
 from __future__ import annotations
@@ -48,8 +48,7 @@ def fft_filter(x: jnp.ndarray, taps: jnp.ndarray, decim: int = 1,
 
     # segments of length fftsize with stride L: segment s covers outputs
     # [s*L, s*L + L) and needs inputs [s*L, s*L + fftsize).  Built from
-    # shifted reshapes (the window-matrix trick) — no gather, which is
-    # catastrophically slow on TPU.
+    # shifted reshapes (the window-matrix trick) — no gather.
     from grtpu.ops.fir import _window_matrix
 
     segs = _window_matrix(xp[: (nseg) * L + fftsize - L], fftsize - L + 1, L)

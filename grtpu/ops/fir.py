@@ -5,7 +5,7 @@ hand-written SIMD dot products (gnuradio-core/src/lib/filter/*dotprod*_sse.S,
 gr_fir_ccf_x86.cc, ...; SURVEY.md §2.3) and the volk kernels
 (volk/include/volk/volk_32fc_x2_dot_prod_32fc_a.h).
 
-TPU-native design — FIR as MXU matmul via a Toeplitz *tap matrix*:
+Design — FIR as a matmul via a Toeplitz *tap matrix*:
 
 For a block of B consecutive outputs starting at m*B,
 
@@ -19,9 +19,10 @@ and the window matrix  ``W[m, j] = x[m*B + j]``, shape (M, ncols).  Then
 
     Y = W @ T,   Y[m, b] = y[m*B + b]
 
-one large matmul that XLA tiles directly onto the 128x128 systolic array.
-W is built from pure reshapes of shifted slices (no gather), so the whole op
-is matmul-bound: efficiency K/(K+B-1) of MXU peak (66% at K=256, B=128).
+one large matmul that XLA hands to the card's matmul library.  W is built
+from pure reshapes of shifted slices (no gather); the useful fraction of
+the matmul's FLOPs is K/(K+B-1) (66% at K=256, B=128), and W itself is
+K+B-1 times the input, materialized in device memory.
 Decimation and interpolation use polyphase decompositions that fold into the
 same single matmul (contraction-axis / output-axis concatenation).
 
@@ -33,8 +34,8 @@ the reference reverses taps internally at set_taps time; here the reversal
 happens once at the op entry before the Toeplitz build).
 
 Complex support is by explicit real decomposition (2 matmuls for complex
-input x real taps, 3-4 for complex x complex), keeping everything on the MXU
-in real f32/bf16.
+input x real taps, 3-4 for complex x complex), keeping every product in
+real f32/bf16.
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Output-block width along the matmul N dimension. 128 matches the MXU lane
-# width; the M dimension (number of window rows) is left to XLA to tile.
+# Output-block width along the matmul N dimension; the M dimension (number
+# of window rows) is left to XLA to tile.
 _B = 128
 
 
@@ -83,13 +84,12 @@ def _window_matrix(x: jnp.ndarray, k: int, block: int) -> jnp.ndarray:
     return w[:, :ncols]
 
 
-# f32 matmul precision: XLA's TPU default lowers f32 dots to single-pass
-# bf16 on the MXU (measured ~2.8 max rel err on 256-tap dots — unusable for
-# SNR-bound DSP).  Modes:
-#   "f32"    — Precision.HIGHEST multi-pass accumulation (~2.7e-4 rel err
-#              on 256-tap dots; the default)
-#   "bf16x3" — explicit split-word 3-pass (~3e-5..1e-4 rel err ≈ 90 dB SNR,
-#              ~1.9x faster on v5e): w = wh + wl in bf16,
+# f32 matmul precision.  An f32 dot with no precision may run in a reduced
+# format (TF32 on an NVIDIA GPU: 10 mantissa bits), too coarse for
+# SNR-bound DSP.  Modes:
+#   "f32"    — Precision.HIGHEST, full f32 products (the default)
+#   "bf16x3" — explicit split-word 3-pass on the bf16 matmul units
+#              (~3e-5..1e-4 rel err, ~90 dB SNR): w = wh + wl in bf16,
 #              y = wh@th + wh@tl + wl@th
 _PRECISION = "f32"
 
@@ -101,12 +101,20 @@ def set_precision(p: str):
     _PRECISION = p
 
 
+def split_bf16(x):
+    """Split f32 ``x`` into bf16 words with x ~= hi + lo (16 of f32's 24
+    mantissa bits).  ``hi`` is rounded with lax.reduce_precision: XLA may
+    drop an f32->bf16->f32 convert pair as excess precision (the GPU
+    backend does), which would leave ``lo`` zero and the product single
+    pass."""
+    hi = jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=7)
+    return hi.astype(jnp.bfloat16), (x - hi).astype(jnp.bfloat16)
+
+
 def _real_matmul(w, t, preferred=jnp.float32):
     if _PRECISION == "bf16x3":
-        wh = w.astype(jnp.bfloat16)
-        wl = (w - wh.astype(jnp.float32)).astype(jnp.bfloat16)
-        th = t.astype(jnp.bfloat16)
-        tl = (t - th.astype(jnp.float32)).astype(jnp.bfloat16)
+        wh, wl = split_bf16(w)
+        th, tl = split_bf16(t)
 
         def mm(a, b):
             return jnp.dot(a, b, preferred_element_type=jnp.float32)
@@ -117,7 +125,7 @@ def _real_matmul(w, t, preferred=jnp.float32):
 
 
 def _matmul(w, t):
-    """Matmul with explicit complex decomposition (keeps the MXU in f32)."""
+    """Matmul with explicit complex decomposition into real products."""
     wc = jnp.iscomplexobj(w)
     tc = jnp.iscomplexobj(t)
     if not wc and not tc:
@@ -265,8 +273,8 @@ def fir_filterbank(x: jnp.ndarray, tapbank: jnp.ndarray) -> jnp.ndarray:
 def batch_fir_filter(x: jnp.ndarray, taps: jnp.ndarray, decim: int = 1) -> jnp.ndarray:
     """Same filter over a batch of channels: x (C, n + K - 1) -> (C, n//decim).
 
-    The window matrices of all channels stack on the matmul M axis, so MXU
-    utilization grows with channel count (the multi-pipe analog of the
+    The window matrices of all channels stack on the matmul M axis, so the
+    matmul grows with channel count (the multi-pipe analog of the
     reference's mp-sched benchmark)."""
     return jax.vmap(lambda xi: fir_filter(xi, taps, decim))(x)
 
@@ -313,11 +321,11 @@ def compose_taps(*tap_sets) -> np.ndarray:
     ``fir(fir(x, a), b) == fir(x, compose_taps(a, b))`` exactly (in exact
     arithmetic).  Composition is the graph-level optimization the reference
     never performs (its scheduler runs each gr_fir_filter block separately,
-    gr_flat_flowgraph.cc buffers between them); on TPU it multiplies MXU
-    efficiency: a chain of S K-tap stages costs S windows of (K+B-1) MXU
+    gr_flat_flowgraph.cc buffers between them); it cuts the Toeplitz
+    matmul's work: a chain of S K-tap stages costs S windows of (K+B-1)
     columns per B outputs, the composed (S*(K-1)+1)-tap filter costs one
-    ~(S*K+B) window — e.g. 16 x 256 taps drops from 36864 to 25344 MXU
-    flops per sample at equal (better, single-rounding) accuracy.
+    ~(S*K+B) window — e.g. 16 x 256 taps drops from 6128 to 4208 columns
+    per B outputs, at equal (better, single-rounding) accuracy.
 
     Accumulates in float64, returns float32.
     """

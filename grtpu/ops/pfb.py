@@ -10,7 +10,7 @@ Analogs (SURVEY.md §2.3):
     rate with linear interpolation between adjacent phases.
   * gr_pfb_decimator_ccf / gr_pfb_interpolator_ccf.
 
-TPU-native design: no commutator loop — the polyphase decomposition is a
+Design: no commutator loop — the polyphase decomposition is a
 reshape/stride pattern, the per-branch FIRs are one batched contraction, and
 the transform across branches is XLA's batched FFT.  The arbitrary resampler
 has *no feedback*: every output's (input index, phase, fraction) is a
@@ -32,6 +32,8 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from grtpu.ops.fir import split_bf16
 
 _HI = jax.lax.Precision.HIGHEST
 
@@ -83,7 +85,7 @@ def channelize(x: jnp.ndarray, proto_taps: np.ndarray, nchan: int,
     T = (n // N) * os_
 
     def cmm(a, m):
-        # precision-aware complex matmul built from real MXU contractions
+        # precision-aware complex matmul built from real contractions
         if precision in ("bf16x3", "bf16"):
             def rmm(p, q):
                 ph = p.astype(jnp.bfloat16)
@@ -98,8 +100,8 @@ def channelize(x: jnp.ndarray, proto_taps: np.ndarray, nchan: int,
                     # single pass (~48-50 dB): for chains whose demods
                     # lock far below that, at ~1.5x the 3-pass rate
                     return mm(ph, qh)
-                pl = (p - ph.astype(jnp.float32)).astype(jnp.bfloat16)
-                ql = (q - qh.astype(jnp.float32)).astype(jnp.bfloat16)
+                ph, pl = split_bf16(p)
+                qh, ql = split_bf16(q)
                 return mm(ph, qh) + mm(ph, ql) + mm(pl, qh)
         else:
             def rmm(p, q):
@@ -115,7 +117,7 @@ def channelize(x: jnp.ndarray, proto_taps: np.ndarray, nchan: int,
     # (the commutator advances `step` inputs per output row; the branch FIR
     # strides N regardless of oversampling)
     if os_ == 1:
-        # gather-free MXU path: reshape x into rows of N, so
+        # gather-free matmul path: reshape x into rows of N, so
         # x[hist + (t-j)N - b] = X2[t - j + kp - 1 + (b==0), (N-b) % N];
         # stage tap j is a ROW-SHIFTED slice of the column-permuted matrix,
         # and the branch-FIR + N-point IDFT FOLD into one (T,N)@(N,N)
@@ -146,12 +148,12 @@ def channelize(x: jnp.ndarray, proto_taps: np.ndarray, nchan: int,
     # v[b, t] needs x[hist + (t - j*os - q)*step - s], i.e. a row-shifted
     # slice (shift g = j*os + q in [0, kp*os)) of the column-permuted
     # step-wide reshape.  Each shift contributes a (T,step)@(step,N)
-    # product; `step` is below the 128-lane MXU tile, so instead of
-    # kp*os starved matmuls we CONCATENATE the shifted windows along the
+    # product; `step` is narrow, so instead of kp*os starved matmuls we
+    # CONCATENATE the shifted windows along the
     # contraction axis and the stacked per-shift weight matrices along
     # rows: ONE (T, G*step)@(G*step, N) matmul carries the whole branch
     # FIR + IDFT + per-branch weighting (same fold as the critically-
-    # sampled path; ~7x on 1x v5e vs the per-shift loop at HIGHEST).
+    # sampled path).
     G = kp * os_
     rows = T + G
     X3 = jax.lax.dynamic_slice_in_dim(x, 0, rows * step).reshape(rows, step)
@@ -256,18 +258,17 @@ def arb_resample(x: jnp.ndarray, proto_taps: np.ndarray, rate: Fraction,
     # Gather-free for ANY rational rate: outputs k = r (mod P) share the
     # same (phase, frac) and advance Q input samples per period.  G periods
     # are grouped per matmul row so the output axis is >= 128 columns wide
-    # even at tiny P (a 3/2 resample with per-period columns starves the
-    # MXU at N=3: measured 166 Msps vs >2 Gsps at P=160 — VERDICT r3 #5).
-    # W is a strided window matrix built from reshape slices (never an
-    # index gather: TPU gathers are catastrophically slow, see CLAUDE.md);
+    # even at tiny P (a 3/2 resample with per-period columns would run
+    # 3-column matmuls).  W is a strided window matrix built from reshape
+    # slices (never an index gather);
     # T is block-Toeplitz: column g*P + r holds residue r's interpolated
     # taps shifted down g*Q rows.  Useful-flop efficiency is
     # kp/((G-1)*Q + span), the same K/(K+B-1) trade the plain Toeplitz FIR
-    # makes — dense MXU shapes beat minimal FLOPs here.
+    # makes — dense matmul shapes beat minimal FLOPs here.
     P, Q = rate.numerator, rate.denominator
     span = int(i[P - 1]) + kp if n_out >= P else int(i[-1]) + kp
     G = max(1, -(-128 // P)) if n_out >= P else 1
-    while G > 1 and (G - 1) * Q + span > 2048:   # cap row width (VMEM)
+    while G > 1 and (G - 1) * Q + span > 2048:   # cap row width
         G -= 1
     S = G * Q                                    # input stride per row
     span_g = (G - 1) * Q + span                  # window columns per row

@@ -1,8 +1,8 @@
 """Halo exchange: shard-boundary state transfer over the device mesh.
 
-The TPU-native replacement for the reference's buffer-reader history preload
+The replacement for the reference's buffer-reader history preload
 (gr_buffer nzero_preload, gr_flat_flowgraph.cc:124-152) when a stream's time
-axis is sharded across chips: each shard needs the last ``halo`` samples of
+axis is sharded across devices: each shard needs the last ``halo`` samples of
 its left neighbor before filtering — the overlap-save boundary of SURVEY.md
 §5.7 — delivered by an ICI collective permute instead of a circular buffer.
 """
@@ -37,7 +37,7 @@ def ring_halo_left(x: jnp.ndarray, axis_name: str, halo: int,
 def shard_fir_filter(x_local: jnp.ndarray, taps: jnp.ndarray,
                      axis_name: str, decim: int = 1,
                      time_axis: int = -1) -> jnp.ndarray:
-    """Time-sharded FIR: halo-exchange K-1 samples, then local MXU FIR.
+    """Time-sharded FIR: halo-exchange K-1 samples, then local matmul FIR.
 
     x_local: this shard's samples, time on ``time_axis``.  Output shard
     length = local_len // decim (local_len must be a multiple of decim;

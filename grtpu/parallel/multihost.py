@@ -2,12 +2,11 @@
 
 The reference's only inter-host transport is raw UDP datagrams carrying
 samples (gr_udp_source/sink, SURVEY.md §5.8) — no flow control, no clock
-sync, silent loss.  The TPU-native replacement (SURVEY.md §5.8 "TPU-native
-equivalent"): every host ingests ITS OWN slice of the stream (its antenna
+sync, silent loss.  The replacement here (SURVEY.md §5.8): every host ingests ITS OWN slice of the stream (its antenna
 feed, its capture file, its UDP socket) into host RAM, assembles a global
 sharded array with ``jax.make_array_from_process_local_data``, and one
-pjit-ed program spanning the pod processes it — cross-host traffic rides
-ICI/DCN collectives inside XLA instead of hand-rolled sockets.
+pjit-ed program spanning the hosts processes it — cross-host traffic rides
+XLA's collectives instead of hand-rolled sockets.
 
 Pieces:
   * :func:`init_distributed` — `jax.distributed.initialize` with env-var
@@ -40,8 +39,8 @@ def init_distributed(coordinator: Optional[str] = None,
     """Initialize multi-process JAX (no-op when single-process).
 
     Defaults come from the standard env vars (JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID or the TPU pod metadata); on a
-    real pod you usually call this with no arguments.
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID); without them it is a no-op.
+    Where no cluster environment tells JAX of its peers, pass all three.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None:

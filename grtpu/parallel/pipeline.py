@@ -1,13 +1,13 @@
 """Stage-pipelined streaming over the device mesh (pipeline parallelism).
 
-The TPU-native analog of the reference's thread-per-block scheduler
+The analog of the reference's thread-per-block scheduler
 (gr_scheduler_tpb.cc:53-78): there, every block of a chain runs on its own
 OS thread and chunks flow downstream through 32KiB double buffers so
 producer and consumer overlap (gr_flat_flowgraph.cc:96-100).  Here, every
-stage of a chain runs on its own TPU chip along a ``stage`` mesh axis and
-chunks flow downstream through an ICI ``ppermute`` — a hardware systolic
-pipeline.  After S-1 fill steps all S chips compute concurrently, so a
-chain too long (or too stateful) for one chip streams at full per-chip
+stage of a chain runs on its own device along a ``stage`` mesh axis and
+chunks flow downstream through a ``ppermute`` — a systolic pipeline.
+After S-1 fill steps all S devices compute concurrently, so a chain too
+long (or too stateful) for one device streams at full per-device
 rate.
 
 This is exactly the workload of the reference's published mp-sched
@@ -155,14 +155,14 @@ def fir_chain_pipeline(mesh: Mesh, taps: np.ndarray,
 
 def tap_parallel_fir(x: jnp.ndarray, taps_local: jnp.ndarray,
                      axis_name: str, decim: int = 1) -> jnp.ndarray:
-    """Tensor-parallel FIR: the tap axis sharded across chips.
+    """Tensor-parallel FIR: the tap axis sharded across devices.
 
     Each of the n shards holds a contiguous slice of the K taps and the
     full (replicated) input window; it computes its partial dot-products
-    and a ``psum`` over ``axis_name`` reduces them — the MXU analog of
+    and a ``psum`` over ``axis_name`` reduces them — the analog of
     splitting one volk dot-product across cores.  Useful when one filter
     is so long (channel-emulation FIRs, acoustics) that its window matrix
-    exceeds a single chip's VMEM/HBM budget.
+    exceeds a single device's memory.
 
     ``x``: (N + K - 1,) with full K-1 leading history, replicated.
     ``taps_local``: (K / n,) this shard's tap slice (shard i holds

@@ -1,4 +1,4 @@
-"""Block protocol: the TPU-native analog of ``gr_block``.
+"""Block protocol: the JAX analog of ``gr_block``.
 
 Reference semantics being re-designed (not ported):
   * gnuradio-core/src/lib/runtime/gr_block.h:58-217 — stream block contract:
@@ -8,7 +8,7 @@ Reference semantics being re-designed (not ported):
   * gnuradio-core/src/lib/runtime/gr_sync_block.h — 1:1 convenience, plus
     sync_decimator (N:1) and sync_interpolator (1:N).
 
-TPU-native re-design: a Block is a *pure function over a time-block*:
+Re-design: a Block is a *pure function over a time-block*:
 
     state' , (y0, y1, ...) = block.apply(state, x0, x1, ...)
 
@@ -122,7 +122,7 @@ class Block:
         The executor makes these first-class graph citizens: the padded
         output is compacted into a carried device FIFO and downstream blocks
         run on fixed-size emissions drained from it inside the jitted step
-        (see StreamExecutor docs) — the TPU-native replacement for the
+        (see StreamExecutor docs) — the replacement for the
         reference scheduler's variable ``consume()`` demand negotiation
         (gr_block_executor.cc:302-350).  They may also still be composed
         by hand with the mask-and-compact idiom in ``grtpu.models``

@@ -9,7 +9,7 @@ Reference semantics re-designed:
     hierarchical containers whose ``flatten()`` recursively resolves
     hier→leaf edges (gr_hier_block2_detail.cc:402-471).
 
-TPU-native difference: flattening here produces a *static dataflow DAG* that
+Difference: flattening here produces a *static dataflow DAG* that
 is traced once into a single XLA program by the executor — there is no
 scheduler object, no buffer allocation, no threads.  Cycles are disallowed at
 the graph level (feedback belongs inside a block as a ``lax.scan``), matching

@@ -4,7 +4,7 @@ The reference's defining property is that every flowgraph is parallel by
 construction — one thread per block, N identical sub-pipelines scale across
 cores with zero user code (gr_scheduler_tpb.cc:53-78,
 gnuradio-examples/python/mp-sched/synthetic.py:28-45).  This module makes
-parallelism a *framework* property of grtpu the TPU-native way: the same
+parallelism a *framework* property of grtpu: the same
 :class:`~grtpu.runtime.executor.StreamExecutor` step, compiled once and laid
 out over a ``jax.sharding.Mesh`` with two data axes:
 
@@ -18,7 +18,7 @@ out over a ``jax.sharding.Mesh`` with two data axes:
 * ``time`` — sequence parallelism over the stream inside one chunk
   (SURVEY.md §5.7): each shard processes a contiguous time slice, with each
   block's declared ``history`` delivered as an overlap-save halo from the
-  left neighbor via ICI ``ppermute`` (replacing the reference's
+  left neighbor via ``ppermute`` (replacing the reference's
   buffer-reader preload, gr_flat_flowgraph.cc:124-152).  Blocks whose only
   cross-chunk state is the halo run fully parallel across time shards.
   Blocks with carried recurrent state (IIR, rotators, AGC loops) are
@@ -387,12 +387,10 @@ class MeshExecutor(StreamExecutor):
                 planes is None or not any(p.tagged for p in planes)):
             self._bump_counters()
             return
-        from grtpu.utils.xfer import to_numpy
-
         planes = self.chan_planes
-        tagdev_h = {name: {k: to_numpy(v) for k, v in rec.items()}
+        tagdev_h = {name: {k: np.asarray(v) for k, v in rec.items()}
                     for name, rec in tagdev.items()}
-        tagsrc_h = jax.tree_util.tree_map(to_numpy, tagsrc)
+        tagsrc_h = jax.tree_util.tree_map(np.asarray, tagsrc)
         for c in range(self.nchannels):
             src_c = {name: (tuple(a[c] for a in ins),
                             tuple(a[c] for a in outs))
@@ -461,21 +459,36 @@ class MeshExecutor(StreamExecutor):
             return self._mesh_finalize(outs_accum, sink_accum, None,
                                        counts_accum)
 
-        xs = [_ingest(x) for x in ext_inputs]
-        n = xs[0].shape[1]
+        ext_inputs = [x if isinstance(x, jax.Array) else np.asarray(x)
+                      for x in ext_inputs]
+        n = ext_inputs[0].shape[1]
         cs = self.chunk_size
         nchunks = -(-n // cs)
         pad_to = nchunks * cs
-        xs = [
-            jnp.pad(x, [(0, 0), (0, pad_to - n)] + [(0, 0)] * (x.ndim - 2))
-            if pad_to != n else x
-            for x in xs
-        ]
+
+        def padded(x):
+            xp = np if isinstance(x, np.ndarray) else jnp
+            if pad_to == n:
+                return x
+            return xp.pad(x, [(0, 0), (0, pad_to - n)]
+                          + [(0, 0)] * (x.ndim - 2))
+
         if device_loop:
+            chan_split = NamedSharding(self.mesh, P(self._chan))
+            xs = [jax.device_put(padded(x), chan_split) for x in ext_inputs]
             return self._run_device_mesh(xs, n, nchunks)
+        # Whole inputs land as (C, nchunks, cs, ...) in the step's own
+        # layout (channels over 'chan', each chunk over 'time'), so taking
+        # chunk c moves no data between devices.
+        chunked = NamedSharding(self.mesh, P(self._chan, None, self._time))
+        xs = [jax.device_put(
+                  padded(x).reshape((x.shape[0], nchunks, cs) + x.shape[2:]),
+                  chunked)
+              for x in ext_inputs]
         for c in range(nchunks):
-            chunk = tuple(x[:, c * cs:(c + 1) * cs] for x in xs)
-            pads, caps = self.step(*chunk)
+            pads, caps = self.step(*(
+                jax.lax.dynamic_index_in_dim(x, c, 1, keepdims=False)
+                for x in xs))
             collect(pads, caps)
         return self._mesh_finalize(outs_accum, sink_accum, n, counts_accum)
 
@@ -510,10 +523,9 @@ class MeshExecutor(StreamExecutor):
             # host replay per chunk x channel (see StreamExecutor
             #._run_device): records are (nchunks, nchannels, ...).
             # Read each stacked record back in ONE transfer, then slice on
-            # the host (per-chunk device slices cost a round-trip each).
-            from grtpu.utils.xfer import to_numpy
-            tagsrc_stk = jax.tree_util.tree_map(to_numpy, tagsrc_stk)
-            tagdev_stk = {name: {k: to_numpy(v) for k, v in rec.items()}
+            # the host.
+            tagsrc_stk = jax.tree_util.tree_map(np.asarray, tagsrc_stk)
+            tagdev_stk = {name: {k: np.asarray(v) for k, v in rec.items()}
                           for name, rec in tagdev_stk.items()}
             for c in range(nchunks):
                 self._advance_mesh_tags(

@@ -5,8 +5,8 @@ handoff per edge (gr_flat_flowgraph.cc buffer per edge); grtpu already
 fuses elementwise work through XLA.  This module adds the optimization the
 reference never performs: *algebraic* fusion of adjacent LTI FIR stages —
 chained convolutions collapse into one convolution with the composed
-impulse response (grtpu.ops.fir.compose_taps), which multiplies MXU
-Toeplitz efficiency (window cost K/(K+B-1) paid once instead of per stage)
+impulse response (grtpu.ops.fir.compose_taps), which multiplies the
+Toeplitz matmul's efficiency (window cost K/(K+B-1) paid once instead of per stage)
 and shrinks the jitted program.  Composition is exact in exact arithmetic;
 in float the composed filter differs from the chained evaluation by
 reassociation only (typically *better*: one rounding instead of S).

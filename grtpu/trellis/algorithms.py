@@ -5,10 +5,10 @@ Analog of gr-trellis core_algorithms (gr-trellis/src/lib/core_algorithms.
 (euclidean on constellation points / hard symbol hamming), and the SISO
 max* forward-backward used by PCCC/SCCC turbo schemes.
 
-TPU-native: time recursions are lax.scans carrying all S path metrics as a
-vector; per-step work is gathers over the predecessor tables + max-reduce
-(VPU).  Branch metrics for the whole block are computed up front as one
-batched distance matrix (MXU/VPU), not per step.
+Design: time recursions are lax.scans carrying all S path metrics as a
+vector; per-step work is gathers over the predecessor tables + max-reduce.
+Branch metrics for the whole block are computed up front as one batched
+distance matrix, not per step.
 """
 
 from __future__ import annotations
@@ -58,9 +58,8 @@ def viterbi(fsm: FSM, metrics: jnp.ndarray, start_state: int = 0,
     prefix max-plus products give every alpha at once and the traceback
     becomes an associative composition of best-predecessor maps (pointer
     doubling) — no O(T) sequential scan.  Worth it only for single-packet
-    latency (23x at B=1 on v5e); the default sequential scan with the
-    one-hot traceback wins once packets are batched (~1.3 Gsym/s at
-    B=4096)."""
+    latency; the default sequential scan with the one-hot traceback wins
+    once packets are batched."""
     if _use_parallel(fsm.S, parallel):
         return _viterbi_parallel(fsm, metrics, start_state, end_state)
     S, I = fsm.S, fsm.I
@@ -92,8 +91,7 @@ def viterbi(fsm: FSM, metrics: jnp.ndarray, start_state: int = 0,
              if end_state < 0 else jnp.asarray(end_state, jnp.int32))
 
     # Traceback with the state as a one-hot vector: per-step work is tiny
-    # static einsums instead of dynamic gathers (dynamic gathers inside a
-    # K-deep scan are the whole cost on TPU — ~270x slower measured).
+    # static einsums instead of dynamic gathers inside the K-deep scan.
     deg = PSc.shape[1]
     pred_oh = np.zeros((S, deg, S), np.float32)
     ps_host = np.maximum(np.asarray(fsm.PS), 0)
@@ -268,11 +266,9 @@ def _reduce(x: jnp.ndarray, axis: int, sum_product: bool) -> jnp.ndarray:
 # trick grtpu.ops.dsp.linear_recurrence plays for IIR, lifted to S states.
 # Work is O(K S^3) instead of O(K S deg).
 #
-# Measured on 1x v5e (K=512, 4-state code): the log-depth mode wins ONLY
-# for single-packet latency (86us/packet, 23x the sequential scan at B=1);
-# once a few packets are vmapped together the O(K) scan with the one-hot
-# traceback is faster and scales to ~1.3 Gsym/s at B=4096.  Default is
-# therefore sequential; pass parallel=True for latency-critical
+# The log-depth mode suits single-packet latency; once a few packets are
+# vmapped together the O(K) scan with the one-hot traceback does less work
+# (O(K S deg) against O(K S^3)).  Default is therefore sequential; pass parallel=True for latency-critical
 # one-packet-at-a-time decodes with S <= _PARALLEL_MAX_S.
 
 _PARALLEL_MAX_S = 16
@@ -367,7 +363,7 @@ def siso_cost(fsm: FSM, priori: jnp.ndarray, prioro: jnp.ndarray,
 
     Returns (K, I), (K, O), or ((K, I), (K, O)) per the flags; each row is
     normalized so its min is 0 (the reference's per-step norm subtraction).
-    TPU-native: forward/backward are O(K) lax.scans over the S-vector of
+    Design: forward/backward are O(K) lax.scans over the S-vector of
     state costs (or opt-in log-depth tropical-semiring associative scans,
     see _alphas_parallel); the combine steps are one batched (K, S, I)
     tensor reduction either way.
@@ -430,9 +426,7 @@ def siso_cost(fsm: FSM, priori: jnp.ndarray, prioro: jnp.ndarray,
             # emit alpha BEFORE t / beta_{t+1} (carries before update)
             return (a_new, b_new), (a, b)
 
-        # unroll amortizes the TPU while-loop per-iteration overhead
-        # (measured on the B=1024 SCCC chain: 30.5 -> 33.6 Msym/s at 8;
-        # 16 regresses)
+        # unroll amortizes the while-loop per-iteration overhead
         _, (alphas, betas_r) = jax.lax.scan(
             both, (a0, bK), (Ef, Eb[::-1]), unroll=unroll)
         betas = betas_r[::-1]                       # (K, S): beta AFTER t

@@ -17,7 +17,7 @@ Analogs (reference gr-trellis/src/lib/):
 Block-granular processing (the reference's set_output_multiple(K) +
 per-block S0/SK reset) maps to decim/interp declared as whole-block item
 counts, so a chunk always holds an integer number of K-blocks; blocks are
-then vmapped — independent K-blocks decode in parallel on the TPU instead
+then vmapped — independent K-blocks decode in parallel on the device instead
 of sequentially in one thread.
 """
 

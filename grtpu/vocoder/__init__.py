@@ -1,10 +1,10 @@
 """grtpu.vocoder — voice codec blocks.
 
-TPU-native re-design of gr-vocoder (reference: /root/reference/gr-vocoder):
+Re-design of gr-vocoder (reference: gr-vocoder):
 waveform codecs whose per-sample feedback is expressed as ``lax.scan``
-recurrences (vmappable over independent voice channels — the TPU win is
-batching hundreds of 8 kHz channels, not accelerating one), and memoryless
-companders as branchless VPU elementwise ops.
+recurrences (vmappable over independent voice channels — the accelerator
+win is batching hundreds of 8 kHz channels, not accelerating one), and
+memoryless companders as branchless elementwise ops.
 
 Block-name mapping (reference block -> grtpu):
   vocoder_alaw_encode_sb / _decode_bs   -> AlawEncode / AlawDecode

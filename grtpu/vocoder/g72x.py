@@ -5,7 +5,7 @@ Reference behavior: gr-vocoder/lib/g7xx/{g72x.c,g721.c,g723_24.c,g723_40.c}
 vocoder_g7*_encode_sb / _decode_bs blocks (one code byte per PCM sample).
 
 ADPCM has per-sample feedback through an adaptive quantizer and an adaptive
-2-pole/6-zero predictor — inherently sequential, so the TPU formulation is a
+2-pole/6-zero predictor — inherently sequential, so the formulation here is a
 ``lax.scan`` over the time-block with the full coder state as carry.  Every
 arithmetic step reproduces the reference's 16-bit truncation semantics
 (explicit ``_s16`` where the C stores through ``short``), giving bit-exact

@@ -4,7 +4,7 @@ Reference behavior: gr-vocoder/lib/gsm/ (libgsm 1.0, Degener/Bormann) wrapped
 by vocoder_gsm_fr_encode_sp / _decode_ps (sync decimator/interpolator by 160,
 regular non-WAV49 packing, gsm.h:44 GSM_MAGIC 0xD).
 
-TPU formulation: the codec is a per-frame recurrence (lax.scan over frames);
+Formulation: the codec is a per-frame recurrence (lax.scan over frames);
 within a frame the per-sample feedback paths (preprocessing, the 8th-order
 short-term lattice, deemphasis) are per-sample scans, while the heavy parts
 (autocorrelation, the 81-lag LTP search, the RPE weighting filter) are
@@ -456,8 +456,9 @@ def gsm_unpack(frames):
     bits = ((frames[..., :, None].astype(jnp.int32)
              >> np.arange(7, -1, -1)) & 1)
     bits = bits.reshape(frames.shape[:-1] + (264,))
-    return jnp.einsum("...b,bp->...p", bits, jnp.asarray(_UNPACK_W)
-                      ).astype(jnp.int32)
+    return jnp.einsum("...b,bp->...p", bits, jnp.asarray(_UNPACK_W),
+                      precision=jax.lax.Precision.HIGHEST,
+                      preferred_element_type=jnp.int32)
 
 
 @jax.jit

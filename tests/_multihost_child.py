@@ -2,7 +2,7 @@
 
 Each process owns 4 virtual CPU devices (half of a global 8-device 'chan'
 mesh), ingests ITS slice of the global stream with feed_from_host (the
-pod ingest path, SURVEY.md §5.8 TPU-native equivalent), and runs one
+multi-host ingest path, SURVEY.md §5.8), and runs one
 sharded step whose normalization term forces a cross-process collective.
 Local output shards are written for the parent to check against the
 single-process reference.

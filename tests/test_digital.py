@@ -414,8 +414,7 @@ class TestGenericModem:
 
     def test_generic_qpsk_chunked_parity(self):
         """chunked=True (chunk-batched AGC/FLL/clock-sync/receiver with
-        closed-form loop trajectories — the TPU fast path, ~14x the
-        per-sample scans in vmapped banks) must lock and match the exact
+        closed-form loop trajectories — the fast path for vmapped banks) must lock and match the exact
         chain at BER level: clean BER 0, noisy BER within a small factor."""
         from grtpu.digital.generic_mod_demod import GenericModem
 

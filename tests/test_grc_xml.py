@@ -1,6 +1,6 @@
 """Unmodified reference .grc flowgraphs through the XML loader.
 
-VERDICT.md round-1 item #4: the reference's GRC pipeline consumes .grc XML
+The reference's GRC pipeline consumes .grc XML
 (grc/python/Generator.py:32-120, grc/base/ParseXML.py); grtpu.grc.grcxml
 parses the same files into Graphs and runs them.  These tests execute actual
 flowgraphs shipped in /root/reference/gnuradio-examples end-to-end on CPU.

@@ -145,8 +145,8 @@ def test_multi_branch_graph_time_sharded():
         g = Graph()
         pin = g.add_input(Port(jnp.float32))
         pout = g.add_output(Port(jnp.float32))
-        f1 = FirFilter(1, t1, "fff", impl="mxu")
-        f2 = FirFilter(1, t2, "fff", impl="mxu")
+        f1 = FirFilter(1, t1, "fff", impl="matmul")
+        f2 = FirFilter(1, t2, "fff", impl="matmul")
         add = Add(dtype=jnp.float32, nin=2)
         g.connect(pin, f1, (add, 0))
         g.connect(pin, f2, (add, 1))
@@ -186,7 +186,7 @@ def test_stale_taps_guard():
     g = Graph()
     pin = g.add_input(Port(jnp.float32))
     pout = g.add_output(Port(jnp.float32))
-    f = FirFilter(1, np.ones(4, np.float32) / 4, "fff", impl="mxu")
+    f = FirFilter(1, np.ones(4, np.float32) / 4, "fff", impl="matmul")
     g.connect(pin, f, pout)
     ex = StreamExecutor(g, chunk_size=256, donate=False)
     x = np.zeros(256, np.float32)

@@ -46,7 +46,7 @@ class TestFlexFrame:
     def test_end_to_end_frame(self):
         """Synthesize a FLEX-style block: sync + interleaved BCH words with
         channel bit errors -> sync, deinterleave, decode, parse message."""
-        msg = "HELLO TPU"
+        msg = "HELLO GPU"
         data_words = pager.pack_alpha(msg)
         data_words += [0] * (8 - len(data_words))
         coded = np.array([pager.flex_encode_word(w) for w in data_words],

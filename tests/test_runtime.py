@@ -275,7 +275,7 @@ class TestRetuning:
         taps_b = np.array([0, 0, 0, 2.0], np.float32)
         tb = TopBlock(chunk_size=16)
         pin = tb.add_input(Port(jnp.float32))
-        f = FirFilter(1, taps_a, "fff", impl="mxu")
+        f = FirFilter(1, taps_a, "fff", impl="matmul")
         sink = VectorSink()
         tb.connect(pin, f, sink)
         x = np.arange(1, 17, dtype=np.float32)

@@ -68,7 +68,7 @@ class TestG72x:
         np.testing.assert_array_equal(np.asarray(pcm), GOLD[f"{variant}_dec"])
 
     def test_vmap_channels(self, variant):
-        # Batched channels == independent runs (the TPU deployment shape).
+        # Batched channels == independent runs (the bank deployment shape).
         x = jnp.stack([jnp.asarray(GOLD["input"][:1000]),
                        jnp.asarray(GOLD["input"][1000:2000])])
         states = jax.tree.map(

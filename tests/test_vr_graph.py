@@ -1,6 +1,6 @@
 """Variable-rate blocks as first-class graph citizens.
 
-VERDICT.md round-1 item #1: the reference scheduler natively runs blocks
+The reference scheduler natively runs blocks
 with data-dependent consumption mid-graph (digital_clock_recovery_mm_cc.cc
 :160-217 variable consume; gr_block_executor.cc:302-350 demand negotiation).
 These tests prove grtpu's device-FIFO emission machinery gives the same
